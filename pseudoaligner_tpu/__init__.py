@@ -1,8 +1,8 @@
-"""pseudoaligner_tpu — a TPU-native pseudoalignment framework.
+"""pseudoaligner_tpu — a JAX pseudoalignment framework for accelerators.
 
 A from-scratch re-design of 10XGenomics/rust-pseudoaligner (kallisto/RapMap
-style transcript-compatibility mapping) for TPU hardware: the index is a set
-of flat HBM-resident arrays, the read-mapping inner loop is a vectorized
+style transcript-compatibility mapping) for an accelerator (an NVIDIA GPU):
+the index is a set of flat device-resident arrays, the read-mapping inner loop is a vectorized
 JAX/XLA (and Pallas) program over fixed-shape read batches, and scale-out is
 data-parallel sharding over a `jax.sharding.Mesh` with XLA collectives.
 

@@ -1,10 +1,13 @@
 """Shared on-demand builder for the C++ host components.
 
-Each `*/native/__init__.py` compiles its .cpp next to the source on
-first use.  Installed packages can live in read-only site-packages, so
-when the package directory is not writable the artifact goes to a
-per-user cache keyed by the source path and mtime (stale entries are
-simply abandoned).  Callers catch exceptions and fall back to their
+Each `*/native/__init__.py` compiles its .cpp on first use.  The
+libraries are built with `-march=native`, so one is valid only on a host
+with the same CPU features: its file name carries a key hashed from the
+source bytes, the compiler command and the host CPU (machine type plus
+the /proc/cpuinfo feature flags).  A library built on another machine or
+from an older source therefore never matches and is never loaded.  The
+library goes beside its source when that directory is writable, else
+into a per-user cache.  Callers catch exceptions and fall back to their
 NumPy/device paths when no toolchain is available.
 """
 
@@ -12,47 +15,54 @@ from __future__ import annotations
 
 import hashlib
 import os
+import platform
 import subprocess
+
+_CXX = ("g++", "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
+
+
+def host_cpu() -> str:
+    """Machine type and CPU feature flags of this host."""
+    flags = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    flags = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return f"{platform.machine()}:{flags}"
+
+
+def artifact_key(src: str, libs: tuple = ()) -> str:
+    """Hash of (source bytes, compiler command, host CPU)."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join((*_CXX, "-lpthread", *libs)).encode())
+    h.update(host_cpu().encode())
+    return h.hexdigest()[:16]
 
 
 def ensure_built(src: str, so_name: str, libs: tuple = ()) -> str:
-    """Compile `src` to `so_name` beside it (preferred) or in the user
-    cache; returns the shared-object path.  Raises if compilation fails.
-    `libs` adds linker flags (e.g. ("-lz",)) to the direct-g++ fallback;
-    the Makefile path carries its own."""
+    """Path of the shared object for `src` on this host, compiling it
+    first when no library with the current key exists.  `libs` adds
+    linker flags (e.g. ("-lz",)).  Raises if compilation fails."""
     d = os.path.dirname(os.path.abspath(src))
-    so = os.path.join(d, so_name)
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
-        return so
-    if os.access(d, os.W_OK):
-        try:
-            subprocess.run(["make", "-C", d, so_name],
-                           check=True, capture_output=True)
-            return so
-        except Exception:
-            pass
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
-             src, "-o", so, "-lpthread", *libs],
-            check=True, capture_output=True)
-        return so
-    # read-only install: build into a user-writable cache
-    tag = hashlib.sha1(
-        f"{src}:{os.path.getmtime(src)}".encode()
-    ).hexdigest()[:16]
-    cache = os.path.join(
-        os.environ.get("XDG_CACHE_HOME")
-        or os.path.join(os.path.expanduser("~"), ".cache"),
-        "pseudoaligner_tpu",
-    )
-    os.makedirs(cache, exist_ok=True)
-    so = os.path.join(cache, f"{tag}-{so_name}")
+    if not os.access(d, os.W_OK):
+        d = os.path.join(
+            os.environ.get("XDG_CACHE_HOME")
+            or os.path.join(os.path.expanduser("~"), ".cache"),
+            "pseudoaligner_tpu",
+        )
+        os.makedirs(d, exist_ok=True)
+    stem = so_name[:-3] if so_name.endswith(".so") else so_name
+    so = os.path.join(d, f"{stem}-{artifact_key(src, libs)}.so")
     if os.path.exists(so):
         return so
-    tmp = so + ".tmp"
-    subprocess.run(
-        ["g++", "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared",
-         src, "-o", tmp, "-lpthread", *libs],
-        check=True, capture_output=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    subprocess.run([*_CXX, src, "-o", tmp, "-lpthread", *libs],
+                   check=True, capture_output=True)
     os.replace(tmp, so)
     return so

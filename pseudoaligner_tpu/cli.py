@@ -18,6 +18,7 @@ import argparse
 import logging
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -64,7 +65,7 @@ def make_ticker(stream=None, every: int = 1_000_000):
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pseudoaligner",
-        description="De-bruijn-mapping (TPU-native)",
+        description="De-bruijn-mapping (JAX, GPU)",
     )
     p.add_argument("-v", "--version", action="version",
                    version=f"pseudoaligner_tpu {__version__}")
@@ -172,13 +173,12 @@ def cmd_index(args) -> int:
 
 
 def _serving_config(k: int, args) -> AlignerConfig:
-    """The chip-validated serving shape (PERF.md round 3): compact EC
-    output at distinct_cap=3 with read-length-proportional walk caps and
-    a matching node buffer.  Lanes the caps cut off take the exact host
-    re-map (-3 channel), so per-read output is byte-identical to the
-    uncapped debug shape — the caps only move rare work to the
-    overlapped host mapper.  Measured 1.60M reads/s at B=65536/L=60 on
-    one v5e chip (vs ~0.5M at the old uncapped CLI defaults)."""
+    """The serving shape: compact EC output at distinct_cap=3 with
+    read-length-proportional walk caps and a matching node buffer.
+    Lanes the caps cut off take the exact host re-map (-3 channel), so
+    per-read output is byte-identical to the uncapped debug shape — the
+    caps only move rare work to the overlapped host mapper.  Its speed
+    against other shapes is not measured on the H100 (PERF.md)."""
     wcap = max(3, args.max_read_len // 20)
     lcap = 2
     kw = {}
@@ -196,8 +196,20 @@ def _serving_config(k: int, args) -> AlignerConfig:
     )
 
 
-def cmd_map(args, outdir: str) -> int:
+def _serve(image, cfg: AlignerConfig):
+    """The serving aligner, with its index resident on the device."""
+    import jax
+
     from .models.aligner import Pseudoaligner
+
+    t0 = time.perf_counter()
+    aligner = Pseudoaligner(image, cfg)
+    jax.block_until_ready(aligner.dev)
+    log.info("serve init %.3f s", time.perf_counter() - t0)
+    return aligner
+
+
+def cmd_map(args, outdir: str) -> int:
     from .serde import load_index
 
     log.info("Reading index from disk")
@@ -209,8 +221,7 @@ def cmd_map(args, outdir: str) -> int:
     log.info("Mapping reads from fastq")
     log.info("Output directory: %s", outdir)
 
-    cfg = _serving_config(image.k, args)
-    aligner = Pseudoaligner(image, cfg)
+    aligner = _serve(image, _serving_config(image.k, args))
 
     tcc = None
     if args.tcc:
@@ -330,8 +341,6 @@ def cmd_map(args, outdir: str) -> int:
 
 
 def cmd_count(args, outdir: str) -> int:
-    from .config import AlignerConfig
-    from .models.aligner import Pseudoaligner
     from .serde import load_index
     from .singlecell import Chemistry, Whitelist, count_single_cell
 
@@ -342,8 +351,7 @@ def cmd_count(args, outdir: str) -> int:
         # wrong-index mixup, not something to silently ignore
         print(f"Index was built with k={image.k}, not k={args.kmer_size}")
         return 1
-    cfg = _serving_config(image.k, args)
-    aligner = Pseudoaligner(image, cfg)
+    aligner = _serve(image, _serving_config(image.k, args))
     chem = Chemistry(bc_len=args.bc_len, umi_len=args.umi_len)
     wl = Whitelist.load(args.whitelist, args.bc_len) if args.whitelist else None
     counts = count_single_cell(
@@ -419,6 +427,16 @@ def main(argv=None) -> int:
     os.makedirs(outdir, exist_ok=True)
 
     if args.cmd in ("map", "count", "mappability"):
+        import jax
+
+        from .backend import check_platform, cpu_requested, describe
+
+        try:
+            check_platform(jax.default_backend(), cpu_requested())
+        except RuntimeError as e:
+            sys.stderr.write(f"pseudoaligner: {e}\n")
+            return 1
+        log.info("devices: %s", describe())
         # device-compiling subcommands: repeat invocations load the
         # kernel executable from the persistent cache instead of
         # recompiling (jaxcache.py; the reference's index/map decoupling

@@ -1,6 +1,6 @@
 """2-bit DNA primitives (host side, NumPy).
 
-TPU-native equivalent of the `debruijn` crate's `DnaString` / `Kmer` types
+Vectorized equivalent of the `debruijn` crate's `DnaString` / `Kmer` types
 (reference call sites: src/utils.rs:76, src/pseudoaligner.rs:93,156,241,450,
 src/build_index.rs:143 — the crate itself is a [dep], see SURVEY.md section
 2.2).  Encoding: A=0, C=1, G=2, T=3, matching the crate's 2-bit packing.
@@ -10,8 +10,8 @@ byte) — the pack/unpack helpers convert to/from the 2-bit packed ``uint32``
 word form used for k-mers and for the serialized index image.
 
 K-mer representation: a k-mer is the integer ``sum(code[i] << 2*(k-1-i))``
-(leftmost base most significant, as in `debruijn`).  Because TPUs are
-32-bit-lane machines, k-mers are stored as ``W = ceil(2k/32)`` uint32 words
+(leftmost base most significant, as in `debruijn`).  So that device code
+works in 32-bit integers only, k-mers are stored as ``W = ceil(2k/32)`` uint32 words
 in **little-endian word order**: ``words[..., 0]`` holds bits 0..31 (the
 rightmost 16 bases), ``words[..., 1]`` bits 32..63, and so on.  k=20 -> W=2,
 k=64 -> W=4.

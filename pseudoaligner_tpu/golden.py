@@ -2,7 +2,7 @@
 
 A line-by-line semantic mirror of the reference's read-mapping inner loop
 (reference: src/pseudoaligner.rs:64-418), operating on the flat IndexImage.
-This is the oracle the vectorized TPU engine is tested against — it is NOT
+This is the oracle the vectorized device engine is tested against — it is NOT
 the production path.
 
 Semantics reproduced exactly, including the quirks:

@@ -1,6 +1,6 @@
 """Index construction: transcriptome -> flat IndexImage (host, NumPy).
 
-TPU-native re-design of the reference build pipeline
+Re-design of the reference build pipeline
 (reference: src/build_index.rs:27-91 plus the [dep] debruijn primitives it
 drives — `filter_kmers`, `compress_kmers_with_hash`/`ScmapCompress`,
 `compress_graph`, `BaseGraph`; see SURVEY.md section 2.2).

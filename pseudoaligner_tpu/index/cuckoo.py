@@ -1,9 +1,9 @@
 """Bucketized two-choice cuckoo hash table — the speed-mode k-mer index.
 
-Motivation (measured on TPU v5e, see tools/tpu_worker.py experiments): a
-gather costs ~8ns per index regardless of row size, so the BBHash MPHF
-probe (7 levels x 2 word-gathers + key + value gathers ~ 17 gather ops) is
-~8x more expensive than a structure that answers in ~2 row gathers.  This
+Motivation: the device probe is bound by random gathers, and the BBHash
+MPHF probe (7 levels x 2 word-gathers + key + value gathers ~ 17 gather
+ops) needs ~8x more of them than a structure that answers in ~2 row
+gathers (the per-gather cost on the H100 is not measured yet).  This
 table stores (key, node, offset) together in 4-slot buckets; a probe
 gathers bucket h1(k) and bucket h2(k) (two [B]-index row gathers) and
 compares keys in registers.  Memory is ~the same as MPHF+keys+values
@@ -199,11 +199,9 @@ def build_bucket1(
 ):
     """Single-hash bucket table: ONE row gather answers a probe.
 
-    MEASURED NEGATIVE on this TPU backend (PERF.md): consuming all 64
-    words of the 256B row makes the gather cost per-ELEMENT (~11x slower
-    than cuckoo end to end at both bundled and 52M-kmer scale) — row
-    width is only "free" when XLA can slice the gather down to a few
-    columns.  Kept as a tested experimental mode (seed_index="bucket1");
+    A probe reads all 64 words of the 256B row, where the cuckoo probe
+    reads 18; not measured on the H100.  Kept as a tested experimental
+    mode (seed_index="bucket1");
     its sort-based build is notably fast (7.4s vs 48.6s cuckoo init at
     52M keys).  Zero overflow by construction: buckets never exceed
     B1_SLOTS — on overflow the build re-salts the hash (4 tries) then

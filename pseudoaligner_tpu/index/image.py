@@ -1,6 +1,6 @@
 """The index image: flat SoA arrays — the host<->device contract.
 
-TPU-native equivalent of the serialized `Pseudoaligner` struct
+Flat-array equivalent of the serialized `Pseudoaligner` struct
 (reference: src/pseudoaligner.rs:26-33 — `dbg`, `eq_classes`, `dbg_index`,
 `tx_names`, `tx_gene_mapping`).  The pointer-rich debruijn graph +
 boomphf hashmap become flat arrays laid out for HBM-resident gathers:

@@ -1,8 +1,8 @@
 """BBHash-style minimal perfect hash over k-mers (host build, NumPy).
 
-TPU-native equivalent of `boomphf::Mphf` (BBHash, Limasset et al. 2017;
+Equivalent of `boomphf::Mphf` (BBHash, Limasset et al. 2017;
 [dep], reference call sites src/build_index.rs:195-197 and probe at
-src/pseudoaligner.rs:96).  Differences by design, for the TPU probe path:
+src/pseudoaligner.rs:96).  Differences by design, for the device probe path:
 
 - level sizes are powers of two (bit positions come from a 32-bit hash
   masked by `size-1`), so the device probe needs no 64-bit modulo;

@@ -1,6 +1,6 @@
 """ctypes bridge to the native C++ census builder (see builder.cpp).
 
-The library is compiled on first use (make, falling back to direct g++);
+The library is compiled on first use for this host (_nativebuild.py);
 `census_native` raises if no toolchain is available, and build_index falls
 back to the NumPy path.
 """

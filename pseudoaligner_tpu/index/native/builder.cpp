@@ -1,7 +1,7 @@
 // Native index-build census — the heavy host-side stage of index
 // construction (stage A; see ../builder.py).
 //
-// TPU-native equivalent of the reference's sharded build hot path:
+// Native equivalent of the reference's sharded build hot path:
 // rayon-parallel super-k-mer sort + debruijn::filter_kmers k-mer census +
 // CountFilterEqClass equivalence-class interning + the ScmapCompress join
 // computation (reference: src/build_index.rs:50-71,153-179 and
@@ -485,7 +485,7 @@ extern "C" {
 // builder in ../mphf.py (the level-assignment algorithm is deterministic
 // given the keys: per level, keys whose hash bucket has exactly one
 // occupant are placed; pow2 level sizes, gamma widening on tail levels).
-// TPU-native equivalent of boomphf::Mphf::from_chunked_iterator_parallel
+// Native equivalent of boomphf::Mphf::from_chunked_iterator_parallel
 // (reference: src/build_index.rs:195-197 [dep]).
 typedef struct {
   int64_t n_keys;

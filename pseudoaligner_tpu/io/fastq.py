@@ -3,7 +3,7 @@
 Host input stage feeding fixed-shape read batches to the device mapping
 engine.  Replaces the reference's mutexed shared record iterator + worker
 threads (reference: src/pseudoaligner.rs:420-474, src/utils.rs:152-157)
-with a batch reader: the TPU data-parallel axis replaces the thread pool.
+with a batch reader: the device batch axis replaces the thread pool.
 """
 
 from __future__ import annotations
@@ -87,8 +87,8 @@ class _GzScanBuffer:
         self.err: BaseException | None = None
         # adaptive bytes-per-record estimate for right-sizing fills
         self.rec_est = 512
-        # zlib inflate is the expensive step (~150-190 MB/s single-stream,
-        # i.e. LESS than the device's serving appetite at ~220 MB/s of
+        # zlib inflate is the expensive step (~150-190 MB/s single-stream
+        # on one host core, slower than the serving loop can consume
         # FASTQ) — run it on a dedicated producer thread so it overlaps
         # the scan + pack + dispatch work instead of serializing with it.
         self._chunk = int(_os.environ.get("PA_GZ_CHUNK", chunk))
@@ -96,8 +96,8 @@ class _GzScanBuffer:
         self._gz = None
         try:
             # native producer (gzstream.cpp): file read + inflate on a
-            # GIL-free thread; Python-thread handoff jitter measurably
-            # drained the FIFO dispatch pipeline (PERF.md round 4)
+            # GIL-free thread, so Python-thread handoff jitter cannot
+            # drain the dispatch pipeline
             from . import native as _native
 
             _native._load_gz()  # toolchain errors -> Python fallback

@@ -2,9 +2,8 @@
 // scanner input (reference: src/utils.rs:147-157 [dep] opens plain or
 // gz FASTQs via flate2; here the inflate runs on dedicated NATIVE
 // threads so it never contends with the Python serving loop for the GIL:
-// the measured single-stream inflate cost (~25-60ms per 65k-read batch)
-// must overlap the device step, and Python-thread handoff jitter was
-// enough to drain the FIFO dispatch pipeline (PERF.md round 4)).
+// the single-stream inflate cost must overlap the device step, and
+// Python-thread handoff jitter can drain the dispatch pipeline).
 //
 // Producer thread: fread -> inflate -> bounded block queue (byte-capped).
 // Consumer (ctypes, GIL released): pa_gz_fill copies queued blocks into
@@ -363,9 +362,8 @@ struct PaGz {
     // BGZF: spin the worker pool lazily (only for files that are BGZF).
     // Default 1 worker on narrow (<= 4 core) hosts: the serving loop's
     // render/remap/scan threads saturate those cores and extra inflate
-    // workers measurably SINK the gz serving ratio (chip A/B c24:
-    // 2 workers 0.59-0.78 vs 1 worker 0.75-0.91 of plain) — reader-only
-    // parallel speedup (170 -> ~950MB/s) is for wide hosts.
+    // workers can sink the gz serving ratio; the reader-only parallel
+    // speedup is for wide hosts.
     unsigned hw = std::thread::hardware_concurrency();
     n_workers = (int)(hw > 4 ? (hw - 4 < 3 ? hw - 4 : 3) : 1);
     const char* envw = getenv("PA_GZ_WORKERS");

@@ -1,6 +1,6 @@
 // Native FASTQ scanner — the host data-loader hot path.
 //
-// TPU-native equivalent of the reference's rust-bio FASTQ reader + worker
+// Native equivalent of the reference's rust-bio FASTQ reader + worker
 // threads pulling records off a mutex (reference: src/pseudoaligner.rs:
 // 430-450, src/utils.rs:152-157 [dep]): here the parse feeds fixed-shape
 // device batches, so the scanner writes base codes straight into the
@@ -181,8 +181,8 @@ int64_t pa_fastq_scan_prefix(const char* buf, int64_t n, int64_t start,
 
 // Fused R1 key derivation for the single-cell count path
 // (singlecell.py::consume): ONE pass replaces the numpy LUT gather +
-// per-column shift packs + whitelist searchsorted (~37ms per 65k-read
-// batch — the count row is host-core bound, PERF.md c13).
+// per-column shift packs + whitelist searchsorted (the count path is
+// bound by host cores).
 // Per row i of arr [n, ml] (raw R1 prefix bytes, 0xFF rows = too-short):
 //   status[i]: 0 = exact (bckey/ukey set), 1 = short, 2 = clean
 //              non-member (pkbc/pkumi set; batched whitelist correction),

@@ -1,6 +1,6 @@
 """Shared 32-bit hash spec for k-mer hashing.
 
-TPUs are 32-bit-lane machines: every hash in the framework is built from
+Device code works in 32-bit integers: every hash in the framework is built from
 murmur3's fmix32 avalanche over the little-endian uint32 k-mer words, so
 the host (NumPy) index builder and the device (jnp/Pallas) probes compute
 bit-identical values without 64-bit integer emulation.
@@ -8,7 +8,7 @@ bit-identical values without 64-bit integer emulation.
 Replaces the `boomphf` crate's wyhash-based hashing ([dep], reference call
 sites src/build_index.rs:195-197,213, src/pseudoaligner.rs:96) — the MPHF
 is self-contained, so only internal consistency matters, and a 32-bit mix
-is the TPU-native choice.
+needs no 64-bit integer emulation on the device.
 """
 
 from __future__ import annotations

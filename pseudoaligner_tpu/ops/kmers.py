@@ -1,6 +1,6 @@
 """Device-side k-mer extraction: [B, L] base codes -> packed kmer words.
 
-TPU-native equivalent of `DnaString::get_kmer` over every read position
+Vectorized equivalent of `DnaString::get_kmer` over every read position
 (reference seed scan call site: src/pseudoaligner.rs:93 [dep]).  Instead of
 extracting one k-mer at a time in a scalar loop, the whole [B, P] k-mer
 matrix (P = L-k+1) is produced with k shift-or passes of [B, P] uint32

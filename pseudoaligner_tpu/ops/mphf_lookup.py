@@ -1,6 +1,6 @@
 """Device MPHF probe — the hottest op of the serving path.
 
-TPU-native equivalent of `NoKeyBoomHashMap::get` / `Mphf::try_hash`
+Vectorized equivalent of `NoKeyBoomHashMap::get` / `Mphf::try_hash`
 (reference probe site: src/pseudoaligner.rs:96 [dep]).  Per level:
 32-bit fmix hash -> mask -> one gather for the bit word, one for the rank
 prefix, `lax.population_count` for the in-word rank.  Level metadata is

@@ -151,7 +151,7 @@ def intersect_ecs(rows: np.ndarray, ec_offsets: np.ndarray,
     """Batch EC-list intersection (C++): rows [m, w] int64 of ascending
     distinct EC ids (>= sent padded) -> (flat uint32, offsets int64[m+1])
     intersected transcript lists per row.  Replaces the per-signature
-    python intersect loop on the overflow re-map path (PERF.md)."""
+    python intersect loop on the overflow re-map path."""
     lib = _load()
     rows = np.ascontiguousarray(rows, dtype=np.int64)
     m, w = rows.shape

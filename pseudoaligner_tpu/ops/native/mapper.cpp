@@ -11,7 +11,7 @@
 // (distinct-class overflow / walk-iteration cap) re-map HERE, on host
 // threads fully overlapped with the device — replacing a second device
 // dispatch whose queue position serialized against the next batch's map
-// step (see PERF.md).  Also usable as a standalone CPU mapper.
+// step.  Also usable as a standalone CPU mapper.
 
 #include <algorithm>
 #include <cstdint>

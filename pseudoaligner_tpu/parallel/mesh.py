@@ -2,12 +2,12 @@
 
 The reference has no distributed layer (SURVEY.md §2.3): its parallelism is
 worker threads over a mutexed FASTQ iterator (src/pseudoaligner.rs:430-474).
-The TPU-native equivalent is a first-class sharding layer:
+The equivalent here is a first-class sharding layer:
 
-- mesh axis `reads`: the batch dimension is sharded across chips via
+- mesh axis `reads`: the batch dimension is sharded across devices via
   `shard_map`; the index (the read-only "model") is replicated;
 - per-EC / per-transcript compatibility counts are reduced across the mesh
-  with `psum` — the collective rides ICI, replacing the reference's mpsc
+  with `psum` (NCCL between GPUs), replacing the reference's mpsc
   result channel;
 - multi-host: each host feeds its local FASTQ shard (per-host input
   pipeline), with `jax.distributed` initialization left to the launcher.

@@ -5,7 +5,7 @@ layer that takes the mesh modes multi-host.  The production pattern for
 serving is per-host data parallelism: every host holds the full index
 (or its kpart shard), streams its own slice of the input FASTQ, maps
 locally, and the per-transcript/per-EC count vectors are all-reduced
-across hosts over DCN/ICI — the cross-host analog of the reference's
+across hosts by XLA's collectives — the cross-host analog of the reference's
 mpsc result channel (src/pseudoaligner.rs:430-474).
 
 Host FASTQ sharding is by batch stride: host p maps batches
@@ -17,8 +17,8 @@ identical on every host after the psum.
 Validated without real multi-host hardware by tests/test_multihost.py:
 it spawns separate OS processes, each `jax.distributed.initialize`-d
 with its own virtual CPU devices, builds the GLOBAL mesh, and checks the
-merged counts equal a single-process run (the same code path a real
-TPU pod slice runs, minus ICI).
+merged counts equal a single-process run (the same code path a
+multi-host GPU deployment runs).
 """
 
 from __future__ import annotations
@@ -34,9 +34,9 @@ def init_from_env() -> tuple[int, int]:
     """Initialize jax.distributed from PA_COORDINATOR / PA_NUM_PROCESSES /
     PA_PROCESS_ID (no-op if PA_NUM_PROCESSES is absent or 1).
 
-    On TPU pods the three variables are normally inferred by the runtime
-    and `jax.distributed.initialize()` needs no arguments; the env
-    override is for CPU simulation and bespoke clusters.
+    Nothing tells JAX of a GPU cluster by itself, so the coordinator
+    address, process count and process id come from these variables
+    (also used for CPU simulation).
     Returns (process_index, process_count)."""
     import jax
 

@@ -8,7 +8,8 @@ sub-index plus the (much smaller) replicated graph.  Mapping a read batch:
 1. every device packs its read shard's [b, P] k-mers and computes each
    k-mer's owner shard (`hash & (S-1)`);
 2. queries are bucketed by owner into fixed-capacity send buffers and
-   exchanged with `jax.lax.all_to_all` over ICI (the EP-shaped dispatch of
+   exchanged with `jax.lax.all_to_all` (NCCL over NVLink between GPUs; the
+   EP-shaped dispatch of
    SURVEY.md section 2.3);
 3. each device probes its local sub-MPHF (per-shard level metadata lives
    in device arrays — ops/mphf_lookup.mphf_probe_dynamic — since shards'
@@ -46,8 +47,11 @@ from ..ops.map_kernel import (
     MapMeta,
     MapResult,
     device_index_from_image,
+    exact_meta,
+    lens_link_dtype,
     map_batch_with_seeds,
     next_hit_table,
+    pack_reads_host,
     unpack_reads,
 )
 from ..ops.mphf_lookup import mphf_probe_dynamic
@@ -406,7 +410,7 @@ def make_kpart_step(
             # host emit pipeline re-maps them exactly, so a rare bucket
             # overflow costs a few host re-maps instead of a batch
             # error + device sync (map_batch skips the int(overflow)
-            # drain in compact mode — PERF.md session 4)
+            # drain in compact mode)
             ecd = res.ec_distinct
             last = jnp.where(
                 dropped, jnp.asarray(-3, ecd.dtype), ecd[:, -1]
@@ -531,6 +535,7 @@ class KmerPartitionedAligner:
             lambda a: jax.device_put(jnp.asarray(a), shrd), gsh_np
         )
         self._step = make_kpart_step(meta, self.kmeta, mesh, self.n_tx)
+        self._exact_step = None  # built on map_exact's first call
         self._shard_batch = shard_batch
 
     def serving_aligner(self):
@@ -546,11 +551,41 @@ class KmerPartitionedAligner:
             self.image, self.config,
             map_step=lambda codes, lens: self.map_batch(codes, lens)[0],
             meta=self.meta,
+            remap_step=self.map_exact,
         )
 
-    def map_batch(self, reads: np.ndarray, lens: np.ndarray):
-        from ..ops.map_kernel import lens_link_dtype, pack_reads_host
+    def map_exact(self, reads: np.ndarray, lens: np.ndarray) -> MapResult:
+        """Exact pass over the same sharded arrays (uncapped walks, full
+        outputs) for the serving aligner's re-map of flagged reads when
+        the native host mapper is unavailable; row j of the result is
+        read j.  The index stays sharded.  Each device takes at most
+        cap // n_positions reads per step — a read routes at most
+        n_positions queries — so no bucket can overflow (this
+        full-output pass has no -3 channel to fall back on)."""
+        if self._exact_step is None:
+            self._exact_step = make_kpart_step(
+                exact_meta(self.meta), self.kmeta, self.mesh, self.n_tx)
+        S = self.kmeta.n_shards
+        B, L = self.config.batch_size, self.meta.read_len
+        b_local = B // S
+        per = max(1, min(b_local, self.kmeta.cap // self.meta.n_positions))
+        outs = []
+        for c0 in range(0, len(reads), per * S):
+            m = min(per * S, len(reads) - c0)
+            # read j -> device j % S, so every device takes <= per reads
+            j = np.arange(m)
+            pos = (j % S) * b_local + j // S
+            codes = np.zeros((B, L), np.uint8)
+            codes[pos] = reads[c0:c0 + m]
+            ls = np.zeros(B, lens_link_dtype(L))
+            ls[pos] = lens[c0:c0 + m]
+            r, l = self._shard_batch(pack_reads_host(codes), ls, self.mesh)
+            res = self._exact_step(self.dev, self.lookup, self.gshards, r,
+                                   l)[0]
+            outs.append(jax.tree.map(lambda a: a[pos], res))
+        return jax.tree.map(lambda *a: jnp.concatenate(a), *outs)
 
+    def map_batch(self, reads: np.ndarray, lens: np.ndarray):
         nd = int(self.mesh.devices.size)
         if reads.shape[0] % nd:
             raise ValueError(

@@ -5,7 +5,7 @@ reference's README.md:13-15).  R1 carries cell barcode + UMI, R2 the cDNA
 fragment.  R2 is pseudoaligned on device; per (cell, equivalence-class)
 molecule counts are UMI-deduplicated.  The reference repo has no
 single-cell pipeline (it is the pseudoalignment core such a pipeline would
-sit on); this module is the TPU-native realization of that workload.
+sit on); this module is the device-engine realization of that workload.
 
 Output: a Matrix-Market-style sparse matrix (cells x equivalence classes,
 distinct-UMI counts) plus barcodes.tsv and the EC definition table.
@@ -1124,7 +1124,7 @@ def _count_batched(aligner, r1_path, r2_path, chem, whitelist) -> CellCounts:
         # depth-D deferral on both device waits (pipeline.py):
         # emit_prepare(k) waits on map(k)'s compact fetch and consume(k)
         # waits on remap(k) — each runs only after pipeline_depth more
-        # map steps are queued, so the FIFO tunnel queue stays full
+        # map steps are queued, so the device queue stays full
         from .pipeline import DepthPipeline, prefetch_iter
 
         pipe = DepthPipeline(
@@ -1136,9 +1136,8 @@ def _count_batched(aligner, r1_path, r2_path, chem, whitelist) -> CellCounts:
             # otherwise just waits between dispatches) — the two stages
             # pipeline across batches, and both are order-preserving so
             # first-appearance interning is unchanged.  One render stage
-            # carrying both measured ~120ms/batch on the chip vs the
-            # ~52ms device step: the render thread WAS the critical path
-            # (PERF.md round 4, c13).
+            # carrying both would put the render thread on the critical
+            # path.
             finish=lambda t: consume(*t),
             render=lambda st: (aligner.emit_prepare_group(st[0]), st[1]),
         )

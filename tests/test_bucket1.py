@@ -1,7 +1,7 @@
 """Single-probe bucket seed table (seed_index="bucket1").
 
-One row gather answers a probe (vs the cuckoo's two) — the speed mode for
-GENCODE-scale tables past the gather cache cliff (PERF.md).  Build is
+One row gather answers a probe (vs the cuckoo's two); an experimental
+seed mode, not measured on the H100.  Build is
 NumPy-vectorized with deterministic re-salting on bucket overflow."""
 
 import numpy as np

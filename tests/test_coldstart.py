@@ -10,16 +10,16 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def test_monitor_captures_compile_events():
-    from pseudoaligner_tpu.coldstart import JitEventMonitor, probe_backend
+    from pseudoaligner_tpu.coldstart import JitEventMonitor
 
     mon = JitEventMonitor().start()
     try:
-        pb = probe_backend()
+        fn = jax.jit(lambda x: x * 2 + 1)
+        assert int(fn(np.int32(20))) == 41
     finally:
         mon.stop()
     s = mon.summary()
-    assert pb["first_s"] > 0 and pb["second_s"] > 0
-    # two distinct trivial programs -> at least one trace + one compile
+    # a fresh jitted program -> at least one trace + one compile
     # (or persistent-cache events when a cache is configured)
     assert len(mon.events) >= 2
     assert s["trace_s"] > 0

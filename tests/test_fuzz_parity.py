@@ -95,7 +95,7 @@ def test_fuzz_parity_padded_width_sweep(pad_L, pool_overlap):
     (max_read_len), not the read length — sweep the width range where
     the row under-provisioning bug lived (fixed: pool_fetch_rows), on
     BOTH pool layouts (pool_overlap changes the window-fetch math and is
-    the pending on-chip self-tune candidate)."""
+    a bench self-tune candidate)."""
     rng = np.random.default_rng(pad_L)
     seqs, names, gmap = _random_transcripts(rng, n=8, lo=150, hi=400)
     image = build_index(seqs, names, gmap, k=20)

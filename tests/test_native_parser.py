@@ -9,7 +9,7 @@ from pseudoaligner_tpu.io.fastq import FastqReader
 
 native = pytest.importorskip("pseudoaligner_tpu.io.native")
 
-REF_FASTQ = "/root/reference/test/small.fq"
+from pseudoaligner_tpu.synth import BUNDLED  # noqa: E402
 
 
 def _collect(reader):
@@ -22,10 +22,11 @@ def _collect(reader):
     return out
 
 
-def test_native_matches_python_on_bundled_fastq():
-    a = _collect(FastqReader(REF_FASTQ, 257, 64, use_native=False))
-    b = _collect(FastqReader(REF_FASTQ, 257, 64, use_native=True))
-    assert len(a) == len(b) == 9309
+def test_native_matches_python_on_bundled_fastq(bundled_files):
+    fq = bundled_files[1]
+    a = _collect(FastqReader(fq, 257, 64, use_native=False))
+    b = _collect(FastqReader(fq, 257, 64, use_native=True))
+    assert len(a) == len(b) == BUNDLED["n_reads"]
     assert a == b
 
 
@@ -227,10 +228,10 @@ def _gzip_of(path, out):
     return str(out)
 
 
-def test_gz_reader_parity(tmp_path):
+def test_gz_reader_parity(bundled_files, tmp_path):
     from pseudoaligner_tpu.io.fastq import FastqReader
 
-    src = "/root/reference/test/small.fq"
+    src = bundled_files[1]
     gz = _gzip_of(src, tmp_path / "r.fq.gz")
 
     def batches(path, **kw):
@@ -250,17 +251,17 @@ def test_gz_reader_parity(tmp_path):
             assert ia == ib
 
 
-def test_gz_multimember_and_errors(tmp_path):
+def test_gz_multimember_and_errors(bundled_files, tmp_path):
     import gzip
 
     from pseudoaligner_tpu.io.fastq import FastqReader
 
-    data = open("/root/reference/test/small.fq", "rb").read()
+    data = open(bundled_files[1], "rb").read()
     half = data.find(b"@", len(data) // 2)
     mm = tmp_path / "two.fq.gz"
     mm.write_bytes(gzip.compress(data[:half]) + gzip.compress(data[half:]))
     n = sum(b.n_reads for b in FastqReader(str(mm), 500, 64))
-    assert n == 9309
+    assert n == BUNDLED["n_reads"]
 
     # truncated gzip stream -> error, not silent short read
     whole = gzip.compress(data)
@@ -278,10 +279,10 @@ def test_gz_multimember_and_errors(tmp_path):
             pass
 
 
-def test_gz_r1_prefix_parity(tmp_path):
+def test_gz_r1_prefix_parity(bundled_files, tmp_path):
     from pseudoaligner_tpu.io.fastq import R1PrefixReader
 
-    src = "/root/reference/test/small.fq"
+    src = bundled_files[1]
     gz = _gzip_of(src, tmp_path / "r1.fq.gz")
     pa, pb = R1PrefixReader(src, 28), R1PrefixReader(gz, 28)
     assert pb._gzsrc is not None

@@ -35,7 +35,7 @@ def _assert_pack_matches_plain(dev, meta):
     for f in ("cuckoo", "cuckoo_vals", "pool_rows", "node_row", "ec_bits"):
         a = np.asarray(getattr(packed, f))
         b = np.asarray(getattr(plain, f))
-        # the packed path pads slots/rows up to the TPU-friendly wide
+        # the packed path pads slots/rows up to its wide unpack
         # tile (padded rows are unreachable: bucket mask / slot id /
         # pool offset all bound the gathers) — compare the real prefix
         assert a.dtype == b.dtype and a.shape[1:] == b.shape[1:], f
@@ -133,3 +133,30 @@ def test_pack_upload_end_to_end(small_index, small_reads):
         results[mode] = jax.device_get(al.map_batch_device(codes, lens))
     for a, b in zip(results["0"], results["1"]):
         assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_upload_ab_tool(tmp_path, monkeypatch, capsys):
+    """tools/upload_ab.py at a tiny size (packing forced on): two first
+    serves from no cache, four warm ones, every device image equal to
+    the first, and each arm writes only its own caches."""
+    import importlib.util
+    import json
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "upload_ab.py")
+    spec = importlib.util.spec_from_file_location("upload_ab", path)
+    upload_ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(upload_ab)
+    monkeypatch.setenv("PA_PACK_UPLOAD", "1")
+    opts = upload_ab.parse_args(["--novel-mb", "0.05", "--workdir",
+                                 str(tmp_path)])
+    assert upload_ab.run(opts, "cpu")
+    serves = [json.loads(line) for line in capsys.readouterr().out
+              .splitlines() if line.startswith('{"serve"')]
+    assert [(s["serve"], s["arm"]) for s in serves] == [
+        ("first", "plain"), ("first", "packed"), ("warm", "plain"),
+        ("warm", "packed"), ("warm", "packed"), ("warm", "plain")]
+    assert all(s["same_as_first"] for s in serves)
+    kinds = [sorted(name.split(".")[2][:4] for name in s["disk_caches"])
+             for s in serves]
+    assert kinds[0] == ["dev-"] and kinds[1] == ["dev-", "pack"]

@@ -154,39 +154,74 @@ def test_kpart_serving_surface(small_index, small_reads, tmp_path,
     assert pb.getvalue() == pk.getvalue()
 
 
-def test_kpart_serving_device_remap_fallback(small_index, small_reads,
+def test_kpart_serving_device_remap_fallback(small_index, small_transcripts,
                                              tmp_path):
     """When the native host mapper is unavailable, the kpart serving
     aligner's overflow remap must fall back to an exact DEVICE pass —
-    the engine carries no replicated index, so the fallback builds one
-    lazily from the host image (round-2 review finding: this path used
-    to crash with AttributeError on self.dev)."""
+    through the engine's own exact pass, so the index stays sharded:
+    no replicated copy is built on any device."""
     import io as iomod
 
-    cfg = AlignerConfig(k=20, batch_size=64, max_read_len=64, max_nodes=9,
-                        distinct_cap=3, max_walk_iters=3, max_left_iters=2,
+    cfg = AlignerConfig(k=20, batch_size=64, max_read_len=64, max_nodes=4,
+                        distinct_cap=3, max_walk_iters=1, max_left_iters=1,
                         lazy_seeds=False, left_compact=0.0)
     base = Pseudoaligner(small_index, cfg)
     kp = KmerPartitionedAligner(small_index, cfg, make_mesh(2))
     srv = kp.serving_aligner()
+    calls = []
+    exact = kp.map_exact
+    srv._engine_remap = lambda c, l: calls.append(len(c)) or exact(c, l)
     # simulate a host without the C++ toolchain BEFORE first use
     srv._host_mapper_inst = None
     assert srv._host_mapper() is None
 
+    from pseudoaligner_tpu.synth import reads, write_fastq
+
     fq = tmp_path / "r.fq"
-    dec = "ACGT"
     n = 128
-    with open(fq, "w") as f:
-        for i in range(n):
-            a = "".join(dec[b] for b in small_reads[i][1][:60])
-            f.write(f"@s{i}\n{a}\n+\n{'I' * len(a)}\n")
+    # reads of the indexed transcripts: some cross more nodes than the
+    # walk caps allow, so the overflow remap runs
+    write_fastq(str(fq), reads(small_transcripts[0], n, 60, seed=5), "s")
 
     buf_b, buf_k = iomod.BytesIO(), iomod.BytesIO()
     assert base.emit_fastq(str(fq), buf_b)[0] == n
     assert srv.emit_fastq(str(fq), buf_k)[0] == n
     assert buf_b.getvalue() == buf_k.getvalue()
     # the device fallback must actually have run (these caps flag rows)
-    assert hasattr(srv, "_remap_step")
+    assert calls and kp._exact_step is not None
+    assert not hasattr(srv, "dev") and not hasattr(srv, "_remap_step")
+    # the lookup the exact pass read is still split over the mesh, one
+    # block per device
+    keys = kp.lookup.keys
+    assert keys.sharding.spec[0] == "reads"
+    assert [s.data.shape[0] for s in keys.addressable_shards] == [1, 1]
+
+
+@pytest.mark.parametrize("shard_graph", [False, True])
+def test_kpart_map_exact_matches_replicated(small_index, small_reads,
+                                            shard_graph):
+    """map_exact: uncapped full-output rows, in input order, equal to the
+    replicated exact pass — over more reads than one step takes, so the
+    spread over devices and the chunking both run."""
+    import jax
+
+    from pseudoaligner_tpu.models.aligner import _MAP_STEP_JIT
+    from pseudoaligner_tpu.ops.map_kernel import exact_meta, pack_reads_host
+
+    cfg = AlignerConfig(k=20, batch_size=64, max_read_len=64, max_nodes=4,
+                        distinct_cap=3, max_walk_iters=1, max_left_iters=1,
+                        lazy_seeds=False, left_compact=0.0)
+    n = 150
+    codes, lens = _batch(small_reads, n, 64)
+    base = Pseudoaligner(small_index, cfg)
+    want = jax.device_get(_MAP_STEP_JIT(
+        exact_meta(base.meta), base.dev, pack_reads_host(codes), lens))
+    kp = KmerPartitionedAligner(small_index, cfg, make_mesh(2),
+                                shard_graph=shard_graph)
+    got = jax.device_get(kp.map_exact(codes, lens))
+    assert got.nodes.shape == want.nodes.shape == (n, 2 * 64)
+    for f in ("mapped", "coverage", "mismatches", "nodes", "n_nodes"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
 
 
 def test_build_sharded_graph_blocks(small_index):
